@@ -39,7 +39,7 @@ def main(argv=None) -> int:
     p.add_argument("--em-N", type=int, default=1000)
     args = p.parse_args(argv)
 
-    from nmch_tpu.utils.profiling import variant_ladder
+    from nmch.utils.profiling import variant_ladder
 
     rows = variant_ladder(n_paths=args.paths, N=args.N, reps=args.reps,
                           include_em=False)
@@ -48,7 +48,7 @@ def main(argv=None) -> int:
                                reps=max(2, args.reps // 2),
                                include_fe=False, include_em=True)
 
-    print("\n== NMCH-TPU variant ladder ==")
+    print("\n== NMCH variant ladder ==")
     print(f"{'variant':30s} {'config':>22s} {'ms':>10s} {'G path-steps/s':>15s}")
     for r in rows:
         label = f"{r['method']} {r['engine']} rng={r['rng']}"

@@ -8,7 +8,7 @@ below); hardware speed is irrelevant to estimator spread.  For each N
 in the ladder, both estimators are run over E independent epochs at
 the same n_paths; the table reports per-parameter mean +- std and the
 semi-analytic oracle FD truth.  Results recorded in
-benchmarks/RESULTS.md (round 5).
+benchmarks/RESULTS.md.
 
 Run: ``python benchmarks/lrm_vs_fd.py [--n-paths 16384 --epochs 8]``.
 """
@@ -38,11 +38,11 @@ def main(argv=None) -> int:
     p.add_argument("--Ns", type=str, default="8,16,32,64,128")
     args = p.parse_args(argv)
 
-    from nmch_tpu.oracle import heston_call_undiscounted
-    from nmch_tpu.ops.em_greeks import em_greeks_fd
-    from nmch_tpu.ops.em_lrm import LRM_PARAMS, em_greeks_lrm
-    from nmch_tpu.params import HestonParams
-    from nmch_tpu.rng.philox import split_seed
+    from nmch.oracle import heston_call_undiscounted
+    from nmch.ops.em_greeks import em_greeks_fd
+    from nmch.ops.em_lrm import LRM_PARAMS, em_greeks_lrm
+    from nmch.params import HestonParams
+    from nmch.rng.philox import split_seed
 
     P = HestonParams()
     k0, k1 = split_seed(0)

@@ -1,4 +1,4 @@
-"""Error-matched QMC benchmark (real TPU) — the >=5x table.
+"""Error-matched QMC benchmark (GPU) — the error-matched table.
 
 Reference error curve (results/scalability.png + BASELINE.md): at
 N=1000 the reference's 95%-CI error is ~8e-4 at 2.6e5 paths, scaling
@@ -38,7 +38,7 @@ def main() -> int:
     ap.add_argument("--ndtri", choices=["fast", "precise"],
                     default="fast",
                     help="'precise' = full AS241 inverse CDF — the "
-                         "round-4 probe for the f32 plateau at "
+                         "probe for the f32 plateau at "
                          ">= 2^20 points (RESULTS.md soak)")
     ap.add_argument("--scramble", choices=["lms-shift", "shift", "owen"],
                     default="lms-shift",
@@ -47,34 +47,28 @@ def main() -> int:
                          "conditioning in the CI)")
     args = ap.parse_args()
 
-    from nmch_tpu.params import HestonParams
-    from nmch_tpu.results import SimResult
-    from nmch_tpu.rng.philox import split_seed
-    from nmch_tpu.ops.fe_qmc import fe_moments_qmc
+    from nmch.params import HestonParams
+    from nmch.results import SimResult
+    from nmch.rng.philox import split_seed
+    from nmch.ops.fe_qmc import fe_moments_qmc
 
     params = HestonParams().as_array()
     k0, k1 = split_seed(1234)
 
     lines = ["n_points,N,ms,ci_error,t_ref_ms,speedup_error_matched"]
     print(lines[0], flush=True)
-    from nmch_tpu.utils.backend import on_tpu as _is_tpu
-    on_tpu = _is_tpu()
     for n in (int(x) for x in args.paths.split(",")):
-        # the fused streaming simulator when on hardware and the
-        # replicate size tiles (methods/fe.py uses the same rule)
-        sim = "pallas" if on_tpu and (n // 8) % 1024 == 0 else "scan"
-
         def run(epoch):
             return fe_moments_qmc(params, jnp.uint32(epoch), k0, k1,
-                                  N=args.N, n_paths=n, sim=sim,
-                                  interpret=not on_tpu,
+                                  N=args.N, n_paths=n,
                                   ndtri_mode=args.ndtri,
                                   scramble=args.scramble)
-        jax.device_get(run(0))
+        jax.block_until_ready(run(0))
         t0 = time.perf_counter()
-        outs = [run(1 + i) for i in range(args.reps)]
-        vals = jax.device_get(outs)
+        outs = [jax.block_until_ready(run(1 + i))
+                for i in range(args.reps)]
         dt = (time.perf_counter() - t0) / args.reps
+        vals = jax.device_get(outs)
         # pool the CI over the measured reps (each has only 8 shifts)
         cis = [SimResult(float(m), float(m2), n).ci_error
                for m, m2 in vals]

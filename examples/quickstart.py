@@ -1,10 +1,11 @@
-"""Quickstart: price an ATM European call under Heston on TPU.
+"""Quickstart: price an ATM European call under Heston on a GPU.
 
 The 5-step lifecycle (same shape as the reference's README example):
 
     declare -> init(seed) -> compute() -> print_stats() -> finalize()
 
-Run: ``python examples/quickstart.py``
+Run: ``python examples/quickstart.py`` (on a CPU: ``JAX_PLATFORMS=cpu python
+examples/quickstart.py``, kernels in interpret mode).
 """
 
 import os
@@ -12,8 +13,8 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from nmch_tpu import NMCH_FE, NMCH_EM, HestonParams, SimConfig
-from nmch_tpu.oracle import heston_call_undiscounted
+from nmch import NMCH_FE, NMCH_EM, HestonParams, SimConfig
+from nmch.oracle import heston_call_undiscounted
 
 
 def main():
@@ -77,7 +78,7 @@ def main():
                       if k != "price"))
     m.finalize()
 
-    # EM sensitivities (round 4): exactly-pathwise (S_0, r, rho)
+    # EM sensitivities: exactly-pathwise (S_0, r, rho)
     # through the conditional payoff + CRN finite differences for the
     # rejection-sampled parameters (ops/em_greeks.py).  Smaller config:
     # the CRN-FD pass compiles 10 bumped EM simulations into one

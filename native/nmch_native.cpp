@@ -1,11 +1,11 @@
-// nmch_native: C++ runtime components of NMCH-TPU.
+// nmch_native: C++ runtime components of NMCH.
 //
-// The CUDA reference is native end-to-end; the TPU compute path lives in
+// The CUDA reference is native end-to-end; the GPU compute path lives in
 // JAX/Pallas, and this library provides the native host-side pieces:
 //
 //  * a semi-analytic Heston call oracle (characteristic function +
 //    Gauss-Legendre quadrature) — an implementation fully independent of
-//    the Python/numpy oracle in nmch_tpu/oracle/heston.py, used to
+//    the Python/numpy oracle in nmch/oracle/heston.py, used to
 //    cross-validate it;
 //  * the reference's Abramowitz-Stegun normal CDF and Black-Scholes
 //    "true price" (parity with src/NMCH/utils/utils.cu:5-25 and
@@ -13,7 +13,7 @@
 //  * the reference's 95%-CI error formula (NMCH_FE.hpp:50-55);
 //  * an independent CPU Monte Carlo FE pricer (xoshiro128++ RNG,
 //    one-thread-per-path loop like the reference's playbooks) used as a
-//    statistical cross-check of the TPU engines.
+//    statistical cross-check of the JAX engines.
 //
 // Exposed as a plain C ABI for ctypes (no pybind11 in this image).
 // Build: make -C native  (g++ -O3 -shared -fPIC)
@@ -77,8 +77,7 @@ cplx heston_phi(cplx u, double T, double S0, double r, double k, double rho,
 
 // splitmix64 finalizer: hashes a per-path seed so consecutive path
 // indices map to well-separated generator states (single-word MT
-// seeding of affine-sequential integers gives weak stream separation
-// — round-4 advisor finding).
+// seeding of affine-sequential integers gives weak stream separation).
 static inline uint64_t splitmix64_mix(uint64_t x) {
     x += 0x9E3779B97F4A7C15ULL;
     x = (x ^ (x >> 30)) * 0xBF58476D1CE4E5B9ULL;
@@ -223,8 +222,8 @@ void nmch_cpu_fe_moments(double T, double S0, double v0, double r, double k,
 // NMCH_EM.cu:96-124, generalized over T/S0/r), but sampled with the
 // C++ standard library's OWN poisson/gamma/normal distributions and
 // mt19937_64 — a fully independent implementation used to
-// statistically cross-validate the TPU EM engines (which rebuild the
-// samplers from scratch as masked VPU rejection rounds).
+// statistically cross-validate the JAX EM engines (which rebuild the
+// samplers from scratch as masked rejection rounds).
 // conditional != 0: X = E[(S_T-K)^+ | variance path] in closed form
 // (Phi via erfc — not the A-S approximation, for independence).
 void nmch_cpu_em_moments(double T, double S0, double v0, double r, double k,

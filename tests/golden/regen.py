@@ -3,9 +3,9 @@ os.environ["JAX_PLATFORMS"] = "cpu"
 import jax
 jax.config.update("jax_platforms", "cpu")
 import re
-from nmch_tpu.methods.fe import NMCH_FE
-from nmch_tpu.methods.em import NMCH_EM
-from nmch_tpu.params import HestonParams, SimConfig
+from nmch.methods.fe import NMCH_FE
+from nmch.methods.em import NMCH_EM
+from nmch.params import HestonParams, SimConfig
 import io, contextlib
 
 for name, cls, kw in (("fe", NMCH_FE, {}), ("em", NMCH_EM, {})):

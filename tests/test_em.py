@@ -13,14 +13,14 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from nmch_tpu.params import HestonParams, SimConfig
-from nmch_tpu.results import SimResult
-from nmch_tpu.rng.philox import split_seed
-from nmch_tpu.ops.fe import path_index_grid
-from nmch_tpu.ops.em import em_moments_scan, em_terminal
-from nmch_tpu.ops.em_pallas import em_moments_pallas
-from nmch_tpu.oracle import heston_call_undiscounted
-from nmch_tpu.methods.em import NMCH_EM
+from nmch.params import HestonParams, SimConfig
+from nmch.results import SimResult
+from nmch.rng.philox import split_seed
+from nmch.ops.fe import path_index_grid
+from nmch.ops.em import em_moments_scan, em_terminal
+from nmch.ops.em_pallas import em_moments_pallas
+from nmch.oracle import heston_call_undiscounted
+from nmch.methods.em import NMCH_EM
 
 P = HestonParams()
 
@@ -91,16 +91,18 @@ def test_method_lifecycle():
     m.finalize()
 
 
-def test_em_rejects_tpu_rng():
-    with pytest.raises(ValueError):
-        NMCH_EM(SimConfig(), P, rng="tpu")
+def test_em_rejects_unknown_rng():
+    # threefry (2x32) has no EM path; EM draws philox/threefry4 or a
+    # stateful family
+    with pytest.raises(ValueError, match="threefry"):
+        NMCH_EM(SimConfig(), P, rng="threefry")
 
 
 def test_em_threefry4_parity_and_price():
     """rng='threefry4': golden scan == pallas kernel; price sane and
     distinct from philox draws (fast reproducible generator for EM)."""
-    from nmch_tpu.ops.em import em_moments_scan
-    from nmch_tpu.ops.fe import path_index_grid
+    from nmch.ops.em import em_moments_scan
+    from nmch.ops.fe import path_index_grid
     import jax
     n_paths, N = 2048, 8
     k0, k1 = split_seed(1234)
@@ -116,7 +118,7 @@ def test_em_threefry4_parity_and_price():
         P.as_array(), N, path_index_grid(n_paths), jnp.uint32(0), k0, k1,
         "philox")
     assert float(m_s) != float(m_ph)
-    from nmch_tpu.oracle import heston_call_undiscounted
+    from nmch.oracle import heston_call_undiscounted
     assert abs(float(m_s) - heston_call_undiscounted(P)) < 0.02
 
 
@@ -130,10 +132,10 @@ def test_em_threefry4_method_api():
 
 def test_em_conditional_reduces_ci_and_matches_oracle():
     """Conditional MC: same mean (within CI), strictly smaller CI."""
-    from nmch_tpu.ops.em import em_moments_scan
-    from nmch_tpu.ops.fe import path_index_grid
-    from nmch_tpu.results import SimResult
-    from nmch_tpu.oracle import heston_call_undiscounted
+    from nmch.ops.em import em_moments_scan
+    from nmch.ops.fe import path_index_grid
+    from nmch.results import SimResult
+    from nmch.oracle import heston_call_undiscounted
     import jax
     n_paths, N = 8192, 16
     k0, k1 = split_seed(1234)
@@ -150,8 +152,8 @@ def test_em_conditional_reduces_ci_and_matches_oracle():
 
 
 def test_em_conditional_pallas_matches_scan():
-    from nmch_tpu.ops.em import em_moments_scan
-    from nmch_tpu.ops.fe import path_index_grid
+    from nmch.ops.em import em_moments_scan
+    from nmch.ops.fe import path_index_grid
     import jax
     n_paths, N = 2048, 8
     k0, k1 = split_seed(7)
@@ -227,7 +229,7 @@ def test_em_method_default_poisson_cut_is_fast():
 
 
 # ---------------------------------------------------------------------------
-# round 5: EM x the stateful curand families (the reference prices EM
+# EM x the stateful curand families (the reference prices EM
 # with XORWOW — exploration.cu:54-55, random.cu:6-16 templates the EM
 # kernels over all three curand states)
 
@@ -307,7 +309,7 @@ def test_em_stateful_validation(rng):
 def test_em_stateful_epoch_bound_enforced():
     """The per-family epoch bound guards the stateful stream layout
     (epochs nest below curand's 2^67 subsequence spacing)."""
-    from nmch_tpu.rng.streams import stateful_max_epoch
+    from nmch.rng.streams import stateful_max_epoch
     m = NMCH_EM(SimConfig(NTPB=128, NB=1, N=4), P, engine="scan",
                 rng="xorwow")
     m.init(3)
@@ -321,7 +323,7 @@ def test_em_stateful_matches_native_validator():
     validator (native/nmch_native.cpp::nmch_cpu_em_moments): two fully
     independent implementations of the exact scheme must price within
     combined Monte Carlo error."""
-    from nmch_tpu import native
+    from nmch import native
     if not native.available():
         pytest.skip("native toolchain unavailable")
     n = 16384

@@ -1,5 +1,5 @@
 """EM sensitivities: pathwise-exact trio FD-validated, CRN-FD ladder
-sanity (ops/em_greeks.py — round-3 VERDICT next-step #8).
+sanity (ops/em_greeks.py).
 """
 
 import jax
@@ -7,13 +7,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from nmch_tpu.params import HestonParams, SimConfig
-from nmch_tpu.rng.philox import split_seed
-from nmch_tpu.ops.em_greeks import (
+from nmch.params import HestonParams, SimConfig
+from nmch.rng.philox import split_seed
+from nmch.ops.em_greeks import (
     em_price_and_greeks, em_greeks_fd, PATHWISE_PARAMS,
 )
-from nmch_tpu.ops.em import em_moments_scan
-from nmch_tpu.ops.fe import path_index_grid
+from nmch.ops.em import em_moments_scan
+from nmch.ops.fe import path_index_grid
 
 P = HestonParams()
 K0, K1 = split_seed(1234)
@@ -33,8 +33,7 @@ def test_em_pathwise_price_matches_conditional_estimator():
 
 def test_em_pathwise_trio_matches_crn_fd():
     """For (S_0, r, rho) the variance path is parameter-independent,
-    so CRN central differences converge to the pathwise gradient —
-    the FD validation the VERDICT asked for."""
+    so CRN central differences converge to the pathwise gradient."""
     pv = P.as_array()
     _, g = em_price_and_greeks(pv, jnp.uint32(0), K0, K1,
                                N=N, n_paths=N_PATHS)
@@ -72,7 +71,7 @@ def test_em_fd_ladder_matches_oracle_fd():
     flip-noise std at this (n_paths, rel_bump) — the noise ladder in
     ops/em_greeks.py's docstring."""
     import dataclasses
-    from nmch_tpu.oracle import heston_call_undiscounted
+    from nmch.oracle import heston_call_undiscounted
     vals = {p: [] for p in ("T", "v_0", "k", "theta", "sigma")}
     for e in range(3):
         fd = em_greeks_fd(P.as_array(), jnp.uint32(e), K0, K1,
@@ -108,18 +107,17 @@ def test_em_method_api_greeks():
 
 
 def NMCH_EM_factory():
-    from nmch_tpu.methods.em import NMCH_EM
+    from nmch.methods.em import NMCH_EM
     return NMCH_EM(SimConfig(NTPB=512, NB=8, N=16), P, engine="scan")
 
 
 # ---------------------------------------------------------------------------
-# round 5: score-function (LRM) estimator for the same five parameters
-# (ops/em_lrm.py — the research item em_greeks.py's round-4 docstring
-# left open)
+# score-function (LRM) estimator for the same five parameters
+# (ops/em_lrm.py)
 
 def test_digamma_accuracy():
     from scipy.special import digamma as sp_digamma
-    from nmch_tpu.ops.em_lrm import digamma_vec
+    from nmch.ops.em_lrm import digamma_vec
     z = jnp.asarray(np.linspace(0.05, 100.0, 4001), jnp.float32)
     got = np.asarray(digamma_vec(z))
     want = sp_digamma(np.asarray(z, np.float64))
@@ -134,8 +132,8 @@ def test_em_lrm_matches_oracle_fd():
     the exact scheme makes coarse grids legitimate.  sigma is checked
     loosely (largest d(log lam)/d(eta) -> noisiest score)."""
     import dataclasses
-    from nmch_tpu.oracle import heston_call_undiscounted
-    from nmch_tpu.ops.em_lrm import em_greeks_lrm
+    from nmch.oracle import heston_call_undiscounted
+    from nmch.ops.em_lrm import em_greeks_lrm
     vals = {p: [] for p in ("T", "v_0", "k", "theta", "sigma")}
     for e in range(4):
         _, g = em_greeks_lrm(P.as_array(), jnp.uint32(e), K0, K1,
@@ -158,9 +156,9 @@ def test_em_lrm_matches_oracle_fd():
 
 
 def test_em_lrm_price_matches_conditional_estimator():
-    from nmch_tpu.ops.em_lrm import em_greeks_lrm
-    from nmch_tpu.ops.em import em_moments_scan
-    from nmch_tpu.ops.fe import path_index_grid
+    from nmch.ops.em_lrm import em_greeks_lrm
+    from nmch.ops.em import em_moments_scan
+    from nmch.ops.fe import path_index_grid
     price, _ = em_greeks_lrm(P.as_array(), jnp.uint32(0), K0, K1,
                              N=N, n_paths=N_PATHS)
     m, _ = em_moments_scan(P.as_array(), N, path_index_grid(N_PATHS),
@@ -169,8 +167,8 @@ def test_em_lrm_price_matches_conditional_estimator():
 
 
 def test_em_method_api_lrm():
-    from nmch_tpu.methods.em import NMCH_EM
-    from nmch_tpu.params import SimConfig
+    from nmch.methods.em import NMCH_EM
+    from nmch.params import SimConfig
     m = NMCH_EM(SimConfig(NTPB=512, NB=4, N=16), P, engine="scan")
     m.init(3)
     out = m.greeks(lrm=True)
@@ -186,9 +184,8 @@ def test_em_lrm_finite_under_gamma_underflow():
     to exactly 0.0 in f32 on a large fraction of lanes (P ~ 40% per
     draw at d = 0.01), driving the next step's lam to 0; the Poisson
     score's n/lam must not turn those lanes into NaN and poison all
-    five greeks (round-5 review — pricing never divides by lam, only
-    the score does)."""
-    from nmch_tpu.ops.em_lrm import em_greeks_lrm
+    five greeks (pricing never divides by lam, only the score does)."""
+    from nmch.ops.em_lrm import em_greeks_lrm
     p = HestonParams(k=0.5, theta=0.01, sigma=1.0)
     price, g = em_greeks_lrm(p.as_array(), jnp.uint32(0), K0, K1,
                              N=16, n_paths=2048)

@@ -2,7 +2,7 @@
 
 import pytest
 
-from nmch_tpu import NMCH_FE, HestonParams, SimConfig
+from nmch import NMCH_FE, NMCH_EM, HestonParams, SimConfig
 
 
 CFG = SimConfig(NTPB=512, NB=16, N=100)  # 8192 paths — fast on CPU
@@ -70,9 +70,14 @@ def test_pallas_engine_interpret_lifecycle():
     assert 0.02 < res.price < 0.3
 
 
-def test_scan_engine_rejects_tpu_rng():
-    with pytest.raises(ValueError):
-        NMCH_FE(CFG, HestonParams(), engine="scan", rng="tpu")
+def test_stateful_rng_rejects_pallas_engine():
+    """The fused kernel draws from counter streams only: the stateful
+    families name the scan engine in their error (FE and EM alike)."""
+    for rng in ("xorwow", "mrg32k3a"):
+        with pytest.raises(ValueError, match="engine='scan'"):
+            NMCH_FE(CFG, HestonParams(), engine="pallas", rng=rng)
+        with pytest.raises(ValueError, match="engine='scan'"):
+            NMCH_EM(CFG, HestonParams(), engine="pallas", rng=rng)
 
 
 def test_print_stats_reference_format(capsys):
@@ -116,7 +121,7 @@ def test_print_stats_golden_file(name, capsys):
     changes intentionally."""
     import re
     import pathlib
-    from nmch_tpu.methods.em import NMCH_EM
+    from nmch.methods.em import NMCH_EM
     cls = {"fe": NMCH_FE, "em": NMCH_EM}[name]
     m = cls(SimConfig(NTPB=512, NB=2, N=100), HestonParams(),
             engine="scan")

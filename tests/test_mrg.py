@@ -12,16 +12,16 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from nmch_tpu.rng.mrg32k3a import (
+from nmch.rng.mrg32k3a import (
     M1, M2, _C1, _C2, A12, A13N, A21, A23N, _A1, _A2, _mat_pow,
     seed_state, mrg_state_at, mrg_step, u01_from_z, modmul,
     PATH_LOG2, EPOCH_LOG2,
 )
-from nmch_tpu.params import HestonParams
-from nmch_tpu.ops.fe import path_index_grid
-from nmch_tpu.ops.fe_mrg import fe_moments_mrg
-from nmch_tpu.results import SimResult
-from nmch_tpu.oracle import heston_call_undiscounted
+from nmch.params import HestonParams
+from nmch.ops.fe import path_index_grid
+from nmch.ops.fe_mrg import fe_moments_mrg
+from nmch.results import SimResult
+from nmch.oracle import heston_call_undiscounted
 
 
 def _oracle_step(s1, s2):
@@ -132,8 +132,8 @@ def test_fe_mrg_price_within_ci():
 
 
 def test_method_api_mrg():
-    from nmch_tpu.methods.fe import NMCH_FE
-    from nmch_tpu.params import SimConfig
+    from nmch.methods.fe import NMCH_FE
+    from nmch.params import SimConfig
     P = HestonParams()
     m = NMCH_FE(SimConfig(NTPB=512, NB=4, N=16), P, engine="scan",
                 rng="mrg32k3a")
@@ -142,8 +142,8 @@ def test_method_api_mrg():
     r2 = m.compute()           # epoch 1: fresh draws
     assert 0.05 < r1.price < 0.25
     assert r1.price != r2.price
-    # engine="pallas" is ALLOWED since round 5 (the stateful fused
-    # kernel, ops/fe_stateful_pallas.py); qmc and rot variants are not
+    # the stateful families price on the scan engine only; qmc and rot
+    # variants are refused too
     with pytest.raises(ValueError):
         NMCH_FE(SimConfig(), P, engine="qmc", rng="mrg32k3a")
     with pytest.raises(ValueError):
@@ -166,7 +166,7 @@ def test_u01_uniformity_ks():
 
 def test_boxmuller_normality_ks():
     from scipy.stats import kstest
-    from nmch_tpu.rng.normal import boxmuller
+    from nmch.rng.normal import boxmuller
     pidx = path_index_grid(8192)
     s1, s2 = mrg_state_at(13, pidx, jnp.uint32(0))
     z1, s1, s2 = mrg_step(s1, s2)

@@ -10,10 +10,10 @@ import math
 
 import pytest
 
-from nmch_tpu import native
-from nmch_tpu.params import HestonParams
-from nmch_tpu.results import reference_err
-from nmch_tpu.oracle import heston_call as py_heston, norm_cdf_as
+from nmch import native
+from nmch.params import HestonParams
+from nmch.results import reference_err
+from nmch.oracle import heston_call as py_heston, norm_cdf_as
 
 pytestmark = pytest.mark.skipif(not native.available(),
                                 reason="native toolchain unavailable")
@@ -72,7 +72,7 @@ def test_cpu_em_validates_oracle():
 def test_cpu_em_conditional_tightens_ci():
     """conditional=True (closed-form terminal expectation) must match
     the sampled-terminal price and shrink the CI — the same
-    variance-reduction contract as the TPU engine's."""
+    variance-reduction contract as the JAX engine's."""
     p = HestonParams()
     m_s, m2_s = native.cpu_em_moments(p, N=64, n_paths=20000, seed=9)
     m_c, m2_c = native.cpu_em_moments(p, N=64, n_paths=20000, seed=9,
@@ -83,14 +83,14 @@ def test_cpu_em_conditional_tightens_ci():
     assert e_c < e_s
 
 
-def test_cpu_em_cross_validates_tpu_engine():
+def test_cpu_em_cross_validates_jax_engine():
     """Native C++ EM vs the JAX EM engine: two from-scratch
     implementations of the same exact scheme (different Poisson/Gamma
     samplers, different RNGs) must agree within combined CIs."""
     import jax.numpy as jnp
-    from nmch_tpu.ops.em import em_moments_scan
-    from nmch_tpu.ops.fe import path_index_grid
-    from nmch_tpu.rng.philox import split_seed
+    from nmch.ops.em import em_moments_scan
+    from nmch.ops.fe import path_index_grid
+    from nmch.rng.philox import split_seed
     import jax
     p = HestonParams()
     n = 16384

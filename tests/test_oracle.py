@@ -4,8 +4,8 @@ import math
 
 import pytest
 
-from nmch_tpu.params import HestonParams
-from nmch_tpu.oracle import (
+from nmch.params import HestonParams
+from nmch.oracle import (
     heston_call, heston_call_undiscounted, bs_call, reference_true_price,
     norm_cdf_as, norm_cdf,
 )

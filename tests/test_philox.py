@@ -10,7 +10,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from nmch_tpu.rng import (
+from nmch.rng import (
     philox4x32, mulhilo32, split_seed, uniform_open01, boxmuller,
     PathStreams,
 )
@@ -115,7 +115,7 @@ def test_pathstreams_epoch_advance():
 
 def test_fast_sincos_accuracy():
     """boxmuller's turns-based sincos must match numpy to ~1e-6."""
-    from nmch_tpu.rng.normal import sincos_2pi
+    from nmch.rng.normal import sincos_2pi
     import jax
     u = np.linspace(0, 1, 200_001, dtype=np.float64)[:-1]
     c, s = jax.jit(sincos_2pi)(jnp.asarray(u, jnp.float32))
@@ -130,7 +130,7 @@ def test_threefry_bitwise_matches_jax():
     """Our threefry2x32 must be bit-exact with jax's own PRNG core."""
     import jax
     from jax._src.prng import threefry_2x32
-    from nmch_tpu.rng.threefry import threefry2x32
+    from nmch.rng.threefry import threefry2x32
     rng = np.random.default_rng(3)
     keys = rng.integers(0, 2**32, size=(32, 2), dtype=np.uint32)
     ctrs = rng.integers(0, 2**32, size=(32, 2), dtype=np.uint32)
@@ -144,7 +144,7 @@ def test_threefry_bitwise_matches_jax():
 
 
 def test_threefry_draw4_stream_stats():
-    from nmch_tpu.rng.threefry import draw4_threefry
+    from nmch.rng.threefry import draw4_threefry
     paths = jnp.arange(1 << 15, dtype=jnp.uint32)
     k0, k1 = split_seed(77)
     w = draw4_threefry(jnp.uint32(0), jnp.uint32(0), paths, k0, k1)
@@ -161,7 +161,7 @@ def test_threefry_draw4_stream_stats():
 def test_half_circle_normal_pair_distribution():
     """normal_pair_hc (the kernels' fast path): exact N(0,1) moments,
     tails, and independence."""
-    from nmch_tpu.rng.normal import normal_pair_hc
+    from nmch.rng.normal import normal_pair_hc
     rng = np.random.default_rng(0)
     w = rng.integers(0, 2**32, size=(2, 1 << 21), dtype=np.uint32)
     g1, g2 = normal_pair_hc(jnp.asarray(w[0]), jnp.asarray(w[1]))
@@ -178,7 +178,7 @@ def test_half_circle_normal_pair_distribution():
 
 def test_neg2log_fast_path_accuracy():
     """bits-level -2 ln u: full f32 relative accuracy on the radius."""
-    from nmch_tpu.rng.normal import neg2log, uniform_open01
+    from nmch.rng.normal import neg2log, uniform_open01
     rng = np.random.default_rng(1)
     w = rng.integers(0, 2**32, size=1 << 20, dtype=np.uint32)
     u = np.asarray(uniform_open01(jnp.asarray(w)))
@@ -194,43 +194,3 @@ def test_neg2log_fast_path_accuracy():
     big = rt > 1.5
     assert np.abs((r[big] - rt[big]) / rt[big]).max() < 3e-6
     assert np.abs(r - rt).max() < 2e-3
-
-
-def test_packed_phase_normal4_distribution():
-    """normal4_from_bits3 (rng='tpu' packed-phase fast path): exact
-    N(0,1) moments/tails from 3 words per 4 normals, both the standard
-    and the short-polynomial (fast=True) variants, and pairwise
-    independence including across the shared phase word."""
-    from nmch_tpu.rng.normal import normal4_from_bits3
-    rng = np.random.default_rng(3)
-    w = rng.integers(0, 2**32, size=(3, 1 << 20), dtype=np.uint32)
-    for fast in (False, True):
-        gs = normal4_from_bits3(jnp.asarray(w[0]), jnp.asarray(w[1]),
-                                jnp.asarray(w[2]), fast=fast)
-        gs = [np.asarray(g, np.float64) for g in gs]
-        n = gs[0].size
-        for g in gs:
-            assert abs(g.mean()) < 4 / np.sqrt(n)
-            assert abs(g.std() - 1) < 5e-3
-            assert abs((g ** 4).mean() - 3) < 0.07
-            assert abs((np.abs(g) > 3).mean() - 0.0027) < 4e-4
-        for i in range(4):
-            for j in range(i + 1, 4):
-                assert abs(np.corrcoef(gs[i], gs[j])[0, 1]) < 5 / np.sqrt(n)
-
-
-def test_fast_polynomials_distortion_bound():
-    """The short fast-engine polynomials (_SIN_F/_COS_F/_NEG2LOG_F)
-    keep the normal-variate distortion below ~1e-4 — an order under
-    the MC noise floor at the headline path counts."""
-    from nmch_tpu.rng.normal import normal4_from_bits3
-    rng = np.random.default_rng(4)
-    w = rng.integers(0, 2**32, size=(3, 1 << 18), dtype=np.uint32)
-    a = normal4_from_bits3(*(jnp.asarray(x) for x in w), fast=False)
-    b = normal4_from_bits3(*(jnp.asarray(x) for x in w), fast=True)
-    for ga, gb in zip(a, b):
-        ga = np.asarray(ga, np.float64)
-        d = np.abs(ga - np.asarray(gb, np.float64))
-        # the distortion is ABSOLUTE (poly error ~7e-5 scaled by the
-        # radius, plus the pinned-endpoint R -> 0 corner): mixed bound
-        assert (d / (np.abs(ga) + 1.0)).max() < 5e-4

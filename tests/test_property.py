@@ -26,11 +26,11 @@ import jax.numpy as jnp
 import pytest
 from hypothesis import given, settings, assume, strategies as st
 
-from nmch_tpu.params import HestonParams
-from nmch_tpu.rng.philox import split_seed
-from nmch_tpu.ops.fe import fe_moments_scan, path_index_grid
-from nmch_tpu.ops.fe_pallas import fe_moments_pallas
-from nmch_tpu.ops.em import em_moments_scan
+from nmch.params import HestonParams
+from nmch.rng.philox import split_seed
+from nmch.ops.fe import fe_moments_scan, path_index_grid
+from nmch.ops.fe_pallas import fe_moments_pallas
+from nmch.ops.em import em_moments_scan
 
 K0, K1 = split_seed(1234)
 SW = jnp.stack([jnp.uint32(K0), jnp.uint32(K1)])

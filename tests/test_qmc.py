@@ -12,15 +12,15 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from nmch_tpu.params import HestonParams, SimConfig
-from nmch_tpu.results import SimResult
-from nmch_tpu.rng.philox import split_seed
-from nmch_tpu.rng.sobol import (
+from nmch.params import HestonParams, SimConfig
+from nmch.results import SimResult
+from nmch.rng.philox import split_seed
+from nmch.rng.sobol import (
     direction_numbers, gray_codes, sobol_dims_u32, digital_shifts,
     u01_from_words, BITS,
 )
-from nmch_tpu.ops.fe_qmc import bb_plan, qmc_increments, fe_moments_qmc
-from nmch_tpu.oracle import heston_call_undiscounted
+from nmch.ops.fe_qmc import bb_plan, qmc_increments, fe_moments_qmc
+from nmch.oracle import heston_call_undiscounted
 
 P = HestonParams()
 K0, K1 = split_seed(3)
@@ -82,7 +82,7 @@ def test_bridge_increments_match_brownian_law():
 
 
 def test_qmc_price_within_ci_and_beats_mc():
-    from nmch_tpu.ops.fe import fe_moments_scan, path_index_grid
+    from nmch.ops.fe import fe_moments_scan, path_index_grid
     n, N = 16384, 64
     m, m2 = fe_moments_qmc(P.as_array(), jnp.uint32(0), K0, K1,
                            N=N, n_paths=n)
@@ -110,7 +110,7 @@ def test_qmc_epochs_are_independent_replicates():
 
 
 def test_qmc_method_api_and_validation():
-    from nmch_tpu import NMCH_FE
+    from nmch import NMCH_FE
     m = NMCH_FE(SimConfig(NTPB=512, NB=16, N=50), P, engine="qmc")
     m.init(1)
     res = m.compute()
@@ -118,14 +118,14 @@ def test_qmc_method_api_and_validation():
     with pytest.raises(ValueError):
         NMCH_FE(SimConfig(), P, engine="qmc", rot=4)
     with pytest.raises(ValueError):
-        NMCH_FE(SimConfig(), P, engine="qmc", rng="tpu")
+        NMCH_FE(SimConfig(), P, engine="qmc", rng="threefry4")
 
 
 def test_lms_scramble_preserves_net_property():
     """Owen-style LMS: the scrambled generator must stay a digital net
     (one point per dyadic stratum in every dimension) and differ
     between epochs."""
-    from nmch_tpu.rng.sobol import lms_scramble_directions
+    from nmch.rng.sobol import lms_scramble_directions
     V = direction_numbers(8)
     Vs = np.asarray(lms_scramble_directions(V, jnp.uint32(1), K0, K1))
     V2 = np.asarray(lms_scramble_directions(V, jnp.uint32(2), K0, K1))
@@ -145,7 +145,7 @@ def test_sobol_hilo_matches_direct_ladder():
     """The hi/lo GF(2)-factored generator is bit-identical to the
     30-pass XOR ladder, including with a base offset (the multi-chip
     point-range sharding primitive)."""
-    from nmch_tpu.rng.sobol import (
+    from nmch.rng.sobol import (
         direction_numbers, gray_codes, sobol_dims_u32, sobol_dims_u32_hilo,
     )
     v = direction_numbers(32)
@@ -165,7 +165,7 @@ def test_ndtri_fast_accuracy_and_monotonicity():
     """The QMC engine's divisionless inverse CDF: < 5e-6 absolute on z
     over the u01_from_words range, monotone (sorted u -> sorted z)."""
     from scipy.special import ndtri as scipy_ndtri
-    from nmch_tpu.rng.normal import ndtri_fast
+    from nmch.rng.normal import ndtri_fast
     rng = np.random.default_rng(11)
     u = np.concatenate([
         rng.uniform(2 ** -24, 1 - 2 ** -24, 1 << 20),
@@ -179,26 +179,29 @@ def test_ndtri_fast_accuracy_and_monotonicity():
     assert (np.diff(z) > -1e-5).all()
 
 
-def test_qmc_pallas_sim_matches_scan_sim():
-    """The fused Pallas path simulator (interpret mode) reproduces the
-    XLA scan simulator's moments."""
-    from nmch_tpu.ops.fe_qmc import fe_moments_qmc
-    from nmch_tpu.params import HestonParams
-    p = HestonParams().as_array()
-    m1, m21 = fe_moments_qmc(p, jnp.uint32(1), K0, K1, N=16,
-                             n_paths=8 * 2048, sim="scan")
-    m2, m22 = fe_moments_qmc(p, jnp.uint32(1), K0, K1, N=16,
-                             n_paths=8 * 2048, sim="pallas",
-                             interpret=True)
-    assert float(m2) == pytest.approx(float(m1), rel=2e-6)
-    assert float(m22) == pytest.approx(float(m21), rel=2e-4)
+def test_bridge_increments_match_float64_bridge():
+    """The bridge product's explicit algorithm (BRIDGE_PRECISION, three
+    bf16 passes) keeps the increments at f32 grade against a float64
+    NumPy bridge of the same normals (the card's error is in PERF.md;
+    TF32 would be ~2e-3)."""
+    from nmch.ops.fe_qmc import (
+        qmc_normals_mxu, qmc_increments_mxu, bb_increment_matrix)
+    N, n = 64, 512
+    z1, z2 = qmc_normals_mxu(N, n, jnp.uint32(2), K0, K1)
+    dw1, dw2 = qmc_increments_mxu(N, n, jnp.uint32(2), K0, K1,
+                                  jnp.float32(1.0))
+    A = bb_increment_matrix(N).astype(np.float64)
+    for z, dw in ((z1, dw1), (z2, dw2)):
+        ref = np.sqrt(1.0 / N) * (A @ np.asarray(z, np.float64))
+        err = np.abs(np.asarray(dw, np.float64) - ref).max()
+        assert err / np.sqrt(np.mean(ref * ref)) < 1e-4
 
 
 def test_owen_scramble_preserves_net_property():
     """Hash-based Owen: each scrambled dimension must remain perfectly
     equidistributed at every dyadic resolution (the nested-uniform
     permutation property), differ across seeds, and be reproducible."""
-    from nmch_tpu.rng.sobol import owen_scramble, owen_seeds
+    from nmch.rng.sobol import owen_scramble, owen_seeds
     V = direction_numbers(8)
     m = 12
     x = sobol_dims_u32(gray_codes(1 << m), jnp.asarray(V))      # (8, 2^m)
@@ -273,12 +276,12 @@ def test_qmc_ndtri_precise_mode():
 
 
 def test_scramble_auto_resolution():
-    """scramble='auto' (the round-4 default) resolves by the measured
+    """scramble='auto' (the default) resolves by the measured
     crossover: shared-LMS below 2^21 points, independent Owen
     scrambles above (RESULTS.md attribution: owen holds 77x+
     error-matched at 2^22-2^24 where lms stalls at 33-48x)."""
-    from nmch_tpu.methods.fe import NMCH_FE
-    from nmch_tpu.params import SimConfig
+    from nmch.methods.fe import NMCH_FE
+    from nmch.params import SimConfig
     m_small = NMCH_FE(SimConfig(NTPB=512, NB=16, N=8), P,
                       engine="qmc")
     assert m_small.scramble == "lms-shift"
@@ -295,14 +298,14 @@ def test_scramble_auto_resolution():
 
 
 def test_dyadic_bridge_exact_covariance_and_pow2_equivalence():
-    """bridge='dyadic' (round-4 probe): the refinement map B must
+    """bridge='dyadic': the refinement map B must
     satisfy B B^T = dt I exactly (independent BM increments), and at
     power-of-2 N the padded tree coincides with the dense bridge so
     both bridges price identically.  (At N=1000 the padded tree is
     measured SLOWER and statistically worse — kept as a documented
-    negative result, RESULTS.md round-4 'dyadic bridge' note; the
-    dense-MXU bridge stays the production path.)"""
-    from nmch_tpu.ops.fe_qmc import _dyadic_refine
+    negative result, RESULTS.md 'dyadic bridge' note; the
+    dense matmul bridge stays the production path.)"""
+    from nmch.ops.fe_qmc import _dyadic_refine
     Npad, levels = 16, 4
     dt = 1.0 / Npad
     B = np.asarray(_dyadic_refine(jnp.eye(Npad, dtype=jnp.float32),

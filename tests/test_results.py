@@ -4,7 +4,7 @@ import math
 
 import pytest
 
-from nmch_tpu.results import SimResult, reference_err, correct_ci_error
+from nmch.results import SimResult, reference_err, correct_ci_error
 
 
 def test_reference_err_formula_verbatim():
@@ -51,10 +51,10 @@ def test_simresult_accessors():
 def test_synthesized_moments_err_is_nan():
     """QMC results carry synthesized (replicate-CI) moments; the
     reference-parity err formula has no meaning there and must
-    hard-fail to NaN instead of returning ~1.96|m|/sqrt(n)
-    (round-4 VERDICT weak #7).  ci_error stays the honest RQMC CI."""
+    hard-fail to NaN instead of returning ~1.96|m|/sqrt(n).
+    ci_error stays the honest RQMC CI."""
     import math
-    from nmch_tpu.results import SimResult
+    from nmch.results import SimResult
     r = SimResult(0.12, 0.0145, 1 << 20, synthesized_moments=True)
     assert math.isnan(r.err)
     assert r.ci_error > 0
@@ -65,8 +65,8 @@ def test_synthesized_moments_err_is_nan():
 def test_fe_qmc_result_flagged_synthesized():
     import math
     import jax
-    from nmch_tpu.params import HestonParams, SimConfig
-    from nmch_tpu.methods.fe import NMCH_FE
+    from nmch.params import HestonParams, SimConfig
+    from nmch.methods.fe import NMCH_FE
     m = NMCH_FE(SimConfig(NTPB=128, NB=8, N=16), HestonParams(),
                 engine="qmc")
     m.init(3)

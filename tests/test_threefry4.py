@@ -9,8 +9,8 @@ and stream-separation properties are checked statistically.
 import numpy as np
 import jax.numpy as jnp
 
-from nmch_tpu.rng.philox import split_seed
-from nmch_tpu.rng.threefry4 import threefry4x32, draw4_threefry4
+from nmch.rng.philox import split_seed
+from nmch.rng.threefry4 import threefry4x32, draw4_threefry4
 
 M32 = 0xFFFFFFFF
 ROTS = ((10, 26), (11, 21), (13, 27), (23, 5),

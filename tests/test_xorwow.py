@@ -13,16 +13,16 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from nmch_tpu.rng.xorwow import (
+from nmch.rng.xorwow import (
     WEYL, PATH_LOG2, EPOCH_LOG2, N_BITS,
     _step_words, _step_matrix, _pack, _unpack, _mat_vec, _mat_pow,
     seed_state, xorwow_state_at, xorwow_step, u01_from_out,
 )
-from nmch_tpu.params import HestonParams
-from nmch_tpu.ops.fe import path_index_grid
-from nmch_tpu.ops.fe_xorwow import fe_moments_xorwow
-from nmch_tpu.results import SimResult
-from nmch_tpu.oracle import heston_call_undiscounted
+from nmch.params import HestonParams
+from nmch.ops.fe import path_index_grid
+from nmch.ops.fe_xorwow import fe_moments_xorwow
+from nmch.results import SimResult
+from nmch.oracle import heston_call_undiscounted
 
 
 def _oracle_step(words, d):
@@ -121,7 +121,7 @@ def test_u01_uniformity_ks():
 
 def test_boxmuller_normality_ks():
     from scipy.stats import kstest
-    from nmch_tpu.rng.normal import boxmuller
+    from nmch.rng.normal import boxmuller
     pidx = path_index_grid(8192)
     s, d = xorwow_state_at(13, pidx, jnp.uint32(0))
     o1, s, d = xorwow_step(s, d)
@@ -144,8 +144,8 @@ def test_fe_xorwow_price_within_ci():
 
 
 def test_method_api_xorwow():
-    from nmch_tpu.methods.fe import NMCH_FE
-    from nmch_tpu.params import SimConfig
+    from nmch.methods.fe import NMCH_FE
+    from nmch.params import SimConfig
     P = HestonParams()
     m = NMCH_FE(SimConfig(NTPB=512, NB=4, N=16), P, engine="scan",
                 rng="xorwow")
@@ -154,8 +154,8 @@ def test_method_api_xorwow():
     r2 = m.compute()           # epoch 1: fresh draws
     assert 0.05 < r1.price < 0.25
     assert r1.price != r2.price
-    # engine="pallas" is ALLOWED since round 5 (the stateful fused
-    # kernel, ops/fe_stateful_pallas.py); qmc and rot variants are not
+    # the stateful families price on the scan engine only; qmc and rot
+    # variants are refused too
     with pytest.raises(ValueError):
         NMCH_FE(SimConfig(), P, engine="qmc", rng="xorwow")
     with pytest.raises(ValueError):
@@ -163,13 +163,13 @@ def test_method_api_xorwow():
 
 
 def test_stateful_epoch_bound_enforced():
-    """The per-family epoch bound (rng/streams.py::stateful_max_epoch,
-    round-4 refactor) must gate both the method layer and the mesh
+    """The per-family epoch bound (rng/streams.py::stateful_max_epoch)
+    must gate both the method layer and the mesh
     sharding with the family's own constant."""
-    from nmch_tpu.rng.streams import stateful_max_epoch
-    from nmch_tpu.methods.fe import _stateful_jit
-    from nmch_tpu.rng.xorwow import MAX_EPOCH as XW
-    from nmch_tpu.rng.mrg32k3a import MAX_EPOCH as MRG
+    from nmch.rng.streams import stateful_max_epoch
+    from nmch.methods.fe import _stateful_jit
+    from nmch.rng.xorwow import MAX_EPOCH as XW
+    from nmch.rng.mrg32k3a import MAX_EPOCH as MRG
     assert stateful_max_epoch("xorwow") == XW
     assert stateful_max_epoch("mrg32k3a") == MRG
     with pytest.raises(ValueError, match="epoch"):
